@@ -1,4 +1,4 @@
-"""compairr_tpu — a TPU-native engine for comparing adaptive immune receptor repertoires.
+"""compairr_tpu — a GPU engine for comparing adaptive immune receptor repertoires.
 
 A from-scratch reimplementation of the capabilities of CompAIRR
 (uio-bmi/compairr): repertoire overlap matrices (--matrix), sequence
@@ -8,17 +8,17 @@ CDR3/junction sequences, with V/J-gene matching and
 duplicate-count-weighted scoring.
 
 Instead of the reference's CPU design (Zobrist hashing + Bloom filter +
-open-addressing hash table; see /root/reference/src/zobrist.cc,
-bloompat.cc, hashtable.cc), the compute path here is idiomatic
-JAX/XLA/Pallas for TPU: sequences are packed into fixed-width int8
-tensors, approximate matching runs as MXU one-hot-matmul Hamming tile
-kernels plus a VPU prefix/suffix indel kernel over a block-sparse
-all-vs-all grid, and multi-chip scaling shards one set row-wise over a
-jax.sharding.Mesh and merges partial overlap matrices with psum.
+open-addressing hash table; see the reference's src/zobrist.cc,
+bloompat.cc, hashtable.cc), the device path here is JAX/XLA with
+Triton kernels for the GPU: sequences are packed into fixed-width int8
+tensors, approximate matching (Hamming distance and the one-indel
+prefix/suffix check) runs as per-tile kernels over a block-sparse
+all-vs-all grid, and multi-device scaling shards one set row-wise over
+a jax.sharding.Mesh and merges partial overlap matrices with psum.
 """
 
 __version__ = "0.1.0"
 
 PROG_CMD = "compairr_tpu"
-PROG_NAME = "CompAIRR-TPU"
-PROG_BRIEF = "Comparison of Adaptive Immune Receptor Repertoires on TPU"
+PROG_NAME = "CompAIRR-GPU"
+PROG_BRIEF = "Comparison of Adaptive Immune Receptor Repertoires"

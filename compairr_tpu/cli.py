@@ -506,9 +506,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     # + gprof, src/Makefile:33-36; here: a JAX profiler trace)
     profile_dir = os.environ.get("COMPAIRR_PROFILE")
     if profile_dir:
-        from .utils.lazyjax import ensure_jax
+        import jax
 
-        trace_ctx = ensure_jax().profiler.trace(profile_dir)
+        trace_ctx = jax.profiler.trace(profile_dir)
     else:
         trace_ctx = contextlib.nullcontext()
 
@@ -525,18 +525,6 @@ def main(argv: Optional[list[str]] = None) -> int:
             from .modes.cluster import cluster
 
             cluster(opt, logger, outfile)
-
-    # Record the measured dispatch RTT that the device-routing
-    # constants derived from (ops/engine.route_profile) — only when it
-    # was live-measured ("auto"): pinned profiles are the operator's
-    # choice, and the -l log format is otherwise byte-pinned against
-    # the reference (tests/test_differential.py::test_log_parity).
-    eng = sys.modules.get("compairr_tpu.ops.engine")
-    info = getattr(eng, "ROUTE_PROFILE_INFO", None) if eng else None
-    if info is not None and info[1] not in ("tunnel", "local", "pinned"):
-        logger.write(
-            f"Dispatch RTT ({info[1]}): {info[0] * 1e3:.3f} ms\n"
-        )
 
     logger.show_time("End time:          ")
 

@@ -64,6 +64,6 @@ SCORE_DESCR = [
 MAX_THREADS = 256
 
 # Maximum d handled by the reference's variant-hashing scheme
-# (/root/reference/src/compairr.h:113). Our TPU grid engine handles all
+# (src/compairr.h:113). Our device grid engine handles all
 # d uniformly, but the constant still gates which log phases appear.
 MAXDIFF_HASH = 2

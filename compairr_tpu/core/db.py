@@ -1,8 +1,8 @@
 """Sequence database: the in-memory, tensor-oriented dataset model.
 
 The reference stores sequences packed end-to-end in a byte arena with a
-per-sequence struct (seqinfo_s, /root/reference/src/db.cc:77-88). For a
-TPU engine we instead keep fixed-width numpy tensors, ready to be
+per-sequence struct (seqinfo_s, src/db.cc:77-88). For a device
+engine we instead keep fixed-width numpy tensors, ready to be
 placed on device:
 
   seqs     int8  [N, Lmax]  residues encoded 0..A-1, padded with PAD

@@ -332,9 +332,9 @@ def overlap(
 
     # COMPAIRR_ENGINE=dense routes matrix runs through the dense f32
     # throughput engine as a product surface: one device -> dense_matrix
-    # (Pallas MXU grid on TPU), several -> shard_map + psum over the
-    # device mesh (parallel/mesh.dense_matrix_sharded). Integer score
-    # modes stay exact under the f32 guard (engine._plan_exact_chunks);
+    # (an XLA scan over the tile worklist), several -> shard_map + psum
+    # over the device mesh (parallel/mesh.dense_matrix_sharded). Integer
+    # score modes stay exact under the f32 guard (_plan_exact_chunks);
     # ratio scores are f32-rounded here — the sparse default remains
     # the byte-exact path. Pairs files and existence mode need the
     # matched pair list and stay on the sparse path by construction.

@@ -1,12 +1,13 @@
-"""Multi-chip distribution of the overlap computation.
+"""Multi-device distribution of the dense overlap computation.
 
 The reference's only parallelism is pthreads over set-1 seeds with
-mutex-merged thread-local matrices (/root/reference/src/overlap.cc:
-376-538, threads.h). The TPU-native equivalent: shard set-1 rows across
-a 1-D device mesh, replicate (or later ring-stream) set-2, run the
-dense grid accumulation per shard, and merge the per-shard [R1, R2]
-partial matrices with a psum over ICI — the collective analogue of the
-reference's mutex-guarded matrix merge (overlap.cc:512-527).
+mutex-merged thread-local matrices (src/overlap.cc:376-538, threads.h).
+The device equivalent: shard set-1 rows across a 1-D device mesh,
+replicate (or ring-stream) set 2, run the dense grid accumulation per
+shard, and merge the per-shard [R1, R2] partial matrices with a psum —
+the collective analogue of the reference's mutex-guarded matrix merge
+(overlap.cc:512-527). The cards of one host reach each other all to
+all over NVLink, so the mesh is a plain 1-D axis.
 
 Worklists are built per shard on host (each shard sees its own row
 lengths) and padded to a common length with dummy all-padding tiles so
@@ -18,10 +19,6 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import numpy as np
-
-from ..utils.lazyjax import ensure_jax
-
-ensure_jax()  # bootstrap a deferred accelerator plugin before binding
 
 import jax
 import jax.numpy as jnp
@@ -66,11 +63,9 @@ def initialize_distributed(
     all hosts form the global device mesh afterwards
     (jax.distributed). Parameters default to the standard JAX
     environment variables (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES,
-    JAX_PROCESS_ID) or the cluster auto-detection for TPU pods; a
-    single-process environment is a no-op. The reference has no
-    multi-node capability at all (SURVEY.md: pthreads only) — this is
-    the TPU-native replacement for its manual split-and-merge advice
-    (/root/reference/README.md:766-771)."""
+    JAX_PROCESS_ID); a single-process environment is a no-op. The
+    reference has no multi-node capability at all (SURVEY.md: pthreads
+    only) — this replaces its manual split-and-merge advice."""
     import os
 
     if (
@@ -90,16 +85,16 @@ def initialize_distributed(
 
 def _global_put(mesh: Mesh, pspec: P, host_arr: np.ndarray):
     """Host-replicated numpy -> jax.Array laid out per `pspec` over
-    `mesh`. Single-process: a plain transfer (jit applies the sharding).
-    Multi-process (after initialize_distributed): every process holds
-    the same full host copy and contributes its addressable shards via
-    make_array_from_callback — the standard single-controller JAX
-    pattern for globally-sharded inputs."""
-    if jax.process_count() == 1:
-        return jnp.asarray(host_arr)
+    `mesh`. Single-process: each shard goes straight to its own device
+    (nothing is staged on device 0). Multi-process (after
+    initialize_distributed): every process holds the same full host
+    copy and contributes its addressable shards via
+    make_array_from_callback."""
     from jax.sharding import NamedSharding
 
     sh = NamedSharding(mesh, pspec)
+    if jax.process_count() == 1:
+        return jax.device_put(host_arr, sh)
     return jax.make_array_from_callback(
         host_arr.shape, sh, lambda idx: host_arr[idx]
     )
@@ -125,7 +120,7 @@ def _balanced_bounds(
     make every shard pay the busiest shard's wall. Splitting at the
     quantiles of the cumulative per-row-block tile counts balances
     compute instead — the sharding analogue of the reference's
-    dynamic chunk scheduling (/root/reference/src/overlap.cc:421-434).
+    dynamic chunk scheduling (src/overlap.cc:421-434).
     Cuts stay on tile_m block boundaries, so each shard's re-packed
     blocks coincide with the full packing's and per-shard worklists
     recover exactly the planned per-block tiles."""
@@ -297,7 +292,6 @@ def dense_matrix_sharded(
 
     r1p = _round_up(max(db1.repertoire_count, 1), 8)
     r2p = _round_up(max(db2.repertoire_count, 1), 128)
-    mxu = jax.default_backend() != "cpu"
     spec_kw = dict(
         differences=spec.differences,
         indels=spec.indels and spec.differences == 1,
@@ -314,7 +308,7 @@ def dense_matrix_sharded(
                 a_args, b_args, st[0], st[1],
                 spec_kw=spec_kw, score_int=score_int,
                 ignore_counts=ignore_counts, r1p=r1p, r2p=r2p,
-                tile_m=tile_m, tile_n=tile_n, mxu=mxu,
+                tile_m=tile_m, tile_n=tile_n,
             )
             return acc + contrib, None
 
@@ -495,12 +489,11 @@ def dense_matrix_ring(
 ) -> np.ndarray:
     """[R1, R2] overlap matrix with BOTH sets sharded: set-1 rows stay
     resident per device, set-2 shards rotate around the ring with
-    lax.ppermute so every device sees every block — the TPU analogue
-    of the reference README's manual split-and-merge advice
-    (/root/reference/README.md:766-771) and the SNIPPETS.md ring
-    pattern. Per-device set-2 memory is 1/n of dense_matrix_sharded's
-    replicated copy; per-step compute overlaps the next block's
-    permute (XLA schedules the collective asynchronously)."""
+    lax.ppermute so every device sees every block — the device form
+    of the reference README's manual split-and-merge advice. Per-device
+    set-2 memory is 1/n of dense_matrix_sharded's replicated copy;
+    per-step compute overlaps the next block's permute (XLA schedules
+    the collective asynchronously)."""
     if spec.exclude_self:
         raise ValueError(
             "dense paths do not support exclude_self specs; use "
@@ -592,7 +585,6 @@ def dense_matrix_ring(
 
     r1p = _round_up(max(db1.repertoire_count, 1), 8)
     r2p = _round_up(max(db2.repertoire_count, 1), 128)
-    mxu = jax.default_backend() != "cpu"
     spec_kw = dict(
         differences=spec.differences,
         indels=spec.indels and spec.differences == 1,
@@ -613,7 +605,7 @@ def dense_matrix_ring(
                     a_args, b_cur, st[0], st[1],
                     spec_kw=spec_kw, score_int=score_int,
                     ignore_counts=ignore_counts, r1p=r1p, r2p=r2p,
-                    tile_m=tile_m, tile_n=tile_n, mxu=mxu,
+                    tile_m=tile_m, tile_n=tile_n,
                 )
                 return acc2 + contrib, None
 

@@ -500,8 +500,8 @@ void airr_session_free(void* s) { delete static_cast<Session*>(s); }
 // range_k/range_n select the k-th of n deterministic line-aligned byte
 // chunks of the body — the per-host input sharding for multi-host runs
 // (each host derives identical boundaries from the file size alone,
-// the TPU-native automation of the reference README's manual
-// split-and-merge advice, /root/reference/README.md:766-771).
+// the automation of the reference README's manual split-and-merge
+// advice).
 // range_n <= 1 reads the whole file.
 void* airr_parse(void* session_ptr, const char* filename,
                  int nucleotides, int cdr3, int ignore_counts,

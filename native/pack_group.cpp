@@ -175,7 +175,7 @@ inline uint64_t hash_row(const int8_t* seq, int64_t row_bytes,
 // records a leader (the group member that won the slot); a cheap
 // sequential pass renumbers groups by global first occurrence, so the
 // result is bit-identical to the sequential grouping for any thread
-// count — the TPU build's equivalent of the reference's -t option
+// count — this build's equivalent of the reference's -t option
 // applied to its hashing phases.
 template <class HashFn, class EqFn>
 int64_t group_mt(int64_t n, int n_threads, HashFn&& hf, EqFn&& eq,
@@ -251,7 +251,7 @@ int64_t group_mt(int64_t n, int n_threads, HashFn&& hf, EqFn&& eq,
 extern "C" {
 
 // Stable counting sort by the (v,j,length) bucket key — the host half
-// of the zero-copy pallas pack (engine.pack_keys). The key domain is
+// of the GPU pack (engine.pack_keys). The key domain is
 // tiny ((v*nj+j) * (lmax+1) + len, tens of thousands of bins for real
 // gene tables), so one O(n) count pass + one O(n) stable scatter
 // replaces numpy's 24M-row key-build temporaries and radix argsort
@@ -322,7 +322,7 @@ void pack_rows(const int8_t* flat, const int32_t* lens, int64_t n,
 }
 
 // 5-bit residue packing for device upload (the host half of
-// ops/pallas_kernels._pack_residues): six residues per int32 word.
+// ops/derive._pack_residues): six residues per int32 word.
 // Output is [m, nw]; row i < n takes its residues from seqs[i]
 // (columns >= w read as pad, matching the pad-extended staging
 // buffer), rows >= n are all-pad sentinels. Residue codes (aa 0..20

@@ -1,10 +1,10 @@
-"""Full Keck-scale measured sweep vs the reference binary (round 5).
+"""Full Keck-scale measured sweep vs the reference binary.
 
-Re-measures every BASELINE.md Keck row on the SHIPPED code with the
-same-window interleaved protocol (ref, ours, ref, ours — min per
-side), byte-comparing outputs on every mode where both sides run.
-Reference bar: the published /usr/bin/time protocol of
-/root/reference/README.md:726-755.
+Measures every Keck mode (-m -d 0/1/2, -m -d 1 -i, -c, -z, -x) on the
+SHIPPED code with the same-window interleaved protocol (ref, ours, ref,
+ours — min per side), byte-comparing outputs on every mode where both
+sides run. Reference bar: the published /usr/bin/time protocol of the
+reference README's "Performance" section.
 
 Inputs: the 24.2M-row Keck-synthetic TSV written by
 scripts/diff_large_d2.py (reused verbatim), plus derived 8M / 10k

@@ -6,6 +6,7 @@ from compairr_tpu.constants import (
     SCORE_JACCARD,
     SCORE_MAX,
     SCORE_MEAN,
+    SCORE_MH,
     SCORE_MIN,
     SCORE_PRODUCT,
 )
@@ -67,143 +68,41 @@ def test_dense_matches_sparse(dbs, d, indels, genes, score, f):
     np.testing.assert_allclose(dm, sm, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("f", [False, True])
-@pytest.mark.parametrize("kernel", ["v3", "v2"])
-def test_dense_v2_kernel_interpret(dbs, f, kernel, monkeypatch):
-    """The throughput dense kernels (HBM one-hots + byte-split count
-    folding) in Pallas interpret mode must match the sparse path
-    exactly — substitution-only product/-f runs route onto the
-    pipelined v3 kernel by default (pallas_kernels._dense_kernel_kind)
-    and onto v2 under COMPAIRR_V3=0."""
-    from compairr_tpu.ops import pallas_kernels as P
-
-    if kernel == "v2":
-        monkeypatch.setenv("COMPAIRR_V3", "0")
-    d1, d2 = dbs
-    spec = MatchSpec(differences=2, indels=False, ignore_genes=False)
-    calls = []
-    fn_name = "_dense_v3_fn" if kernel == "v3" else "_dense_v2_fn"
-    real = getattr(P, fn_name)
-
-    def probe(*a, **k):
-        calls.append(1)
-        return real(*a, **k)
-
-    monkeypatch.setattr(P, fn_name, probe)
-    dm = dense_matrix(d1, d2, spec, SCORE_PRODUCT, f, engine="pallas")
-    assert calls, f"{kernel} kernel was not selected for a product run"
-    assert P.LAST_DENSE_KERNEL == kernel
-    sm = sparse_matrix(d1, d2, spec, SCORE_PRODUCT, f)
-    np.testing.assert_allclose(dm, sm, rtol=0, atol=0)
-
 
 @pytest.mark.parametrize(
     "score,f",
-    [(SCORE_PRODUCT, False), (SCORE_MEAN, False), (SCORE_PRODUCT, True)],
+    [
+        (SCORE_PRODUCT, False),
+        (SCORE_MH, False),
+        (SCORE_MIN, False),
+        (SCORE_MAX, False),
+        (SCORE_MEAN, False),
+        (SCORE_JACCARD, False),
+        (SCORE_PRODUCT, True),
+    ],
 )
-def test_dense_v2_chain_modes(dbs, score, f, monkeypatch):
-    """Every v2 bilinear chain family (product, mean, -f) must match
-    the sparse path exactly through the Pallas interpret path, and a
-    tiny run cap must force mid-run Q flushes without changing the
-    result (the exactness flush logic, _flush_flags/_v2_run_cap)."""
-    from compairr_tpu.ops import pallas_kernels as P
+def test_dense_integer_scores_match_sparse(dbs, score, f):
+    """Every integer score mode through the XLA dense path equals the
+    sparse path's float64 accumulation exactly (the f32 exactness
+    guard keeps every partial an integer below 2^24)."""
+    d1, d2 = dbs
+    spec = MatchSpec(differences=1, indels=True, ignore_genes=False)
+    dm = dense_matrix(d1, d2, spec, score, f)
+    sm = sparse_matrix(d1, d2, spec, score, f)
+    np.testing.assert_array_equal(dm, sm)
+
+
+def test_dense_guard_chunks_match_one_shot(dbs, monkeypatch):
+    """A forced chunk plan (tiny f32 budget, host tiles for the
+    heaviest) must give the unchunked result exactly."""
+    from compairr_tpu.ops import engine
 
     d1, d2 = dbs
-    spec = MatchSpec(differences=1, indels=False, ignore_genes=False)
-    calls = []
-    real = P._dense_v3_fn
-
-    def probe(*a, **k):
-        calls.append(a[1])  # the chains tuple
-        return real(*a, **k)
-
-    monkeypatch.setattr(P, "_dense_v3_fn", probe)
-    monkeypatch.setattr(P, "_v2_run_cap", lambda *a: 2)
-    dm = dense_matrix(d1, d2, spec, score, f, engine="pallas")
-    assert calls, "v3 kernel was not selected"
-    if f:
-        assert calls[0] == (("one", "one", 1.0),)
-    elif score == SCORE_MEAN:
-        assert calls[0][0] == ("lo", "one", 0.5)
-    sm = sparse_matrix(d1, d2, spec, score, f)
-    np.testing.assert_allclose(dm, sm, rtol=0, atol=0)
-
-
-@pytest.mark.parametrize("max_count", [280, 200])
-def test_dense_v2_high_byte_counts(tmp_path, monkeypatch, max_count):
-    """Counts >= 256 must engage the high-byte chain (bf16 stage-1);
-    counts in [128, 256) take the single-chain bf16 path (no int8
-    shortcut, no high byte). Both must match the sparse f64 path
-    exactly."""
-    from compairr_tpu.ops import pallas_kernels as P
-
-    # counts stay small enough that no single tile's exactness bound
-    # reaches 2^24 (which would route it to the host tile path and
-    # bypass the kernel under test)
-    a_path = make_tsv(
-        str(tmp_path / "a.tsv"), 100, 5, seed=31, alphabet_sub=5,
-        max_count=max_count,
-    )
-    b_path = make_tsv(
-        str(tmp_path / "b.tsv"), 120, 5, seed=32, alphabet_sub=5,
-        max_count=max_count,
-    )
-    genes = GeneTables()
-    opt = Options()
-    log = NullLogger()
-    d1 = read_db(a_path, opt, genes, log, False, "1")
-    d2 = read_db(b_path, opt, genes, log, False, "2")
-    cmax = max(d1.counts.max(), d2.counts.max())
-    assert (cmax >= 256) == (max_count == 280) and cmax >= 128
-    spec = MatchSpec(differences=1, indels=False, ignore_genes=False)
-    calls = []
-    real = P._dense_v3_fn
-
-    def probe(*a, **k):
-        calls.append(a)
-        return real(*a, **k)
-
-    monkeypatch.setattr(P, "_dense_v3_fn", probe)
-    dm = dense_matrix(d1, d2, spec, SCORE_PRODUCT, False, engine="pallas")
-    assert calls
-    chains = calls[0][1]
-    has_hi = ("hi", "cnt", 256.0) in chains
-    assert has_hi == (cmax >= 256)
-    # int8 stage-1 must be off in this count range
-    assert all(len(a) < 11 or a[10] is False for a in calls)
-    sm = sparse_matrix(d1, d2, spec, SCORE_PRODUCT, False)
-    np.testing.assert_allclose(dm, sm, rtol=0, atol=0)
-
-
-def test_oh_budget_admits_keck_scale(monkeypatch):
-    """The HBM one-hot gate must admit a Keck-scale self-compare on a
-    16 GB device (24,258,048 padded rows x 504 one-hot bytes = 11.4
-    GiB) and reject it when two distinct sets share the budget —
-    round 3's fixed 6M-row gate silently dropped 24M dense runs to
-    the v1 in-kernel-rebuild path."""
-    from compairr_tpu.ops import pallas_kernels as P
-
-    monkeypatch.delenv("COMPAIRR_OH_ROWS_MAX", raising=False)
-    monkeypatch.setenv("COMPAIRR_OH_BYTES_MAX", "12500000000")
-    npad = 24_258_048  # canon_rows(24_205_557, 768)
-    assert P._oh_fits(npad, 24)
-    assert not P._oh_fits(npad, 24, budget_scale=0.5)
-    monkeypatch.setenv("COMPAIRR_OH_ROWS_MAX", str(6 << 20))
-    assert not P._oh_fits(npad, 24)
-
-
-def test_flush_flags_runs():
-    """Flush exactly at column changes, the run cap, and the end."""
-    from compairr_tpu.ops.pallas_kernels import _flush_flags
-
-    work = np.array(
-        [[0, 0], [128, 0], [256, 0], [384, 0], [0, 128], [128, 128]],
-        dtype=np.int32,
-    )
-    f = _flush_flags(work, run_cap=3)
-    np.testing.assert_array_equal(f, [0, 0, 1, 1, 0, 1])
-    f2 = _flush_flags(work, run_cap=64)
-    np.testing.assert_array_equal(f2, [0, 0, 0, 1, 0, 1])
+    spec = MatchSpec(differences=2, indels=False, ignore_genes=False)
+    whole = dense_matrix(d1, d2, spec, SCORE_PRODUCT, False)
+    monkeypatch.setattr(engine, "_F32_EXACT_LIMIT", 40.0)
+    chunked = dense_matrix(d1, d2, spec, SCORE_PRODUCT, False)
+    np.testing.assert_array_equal(whole, chunked)
 
 
 def test_dense_self_comparison(dbs):
@@ -214,15 +113,18 @@ def test_dense_self_comparison(dbs):
     np.testing.assert_allclose(dm, sm, rtol=0, atol=0)
 
 
+
+def _host_layout(p, n, lmax):
+    """pack_set arrays as the kernels' position-major device layout."""
+    return p.seqs[:n, :lmax].T, p.rseqs[:n, :lmax].T
+
+
 def test_device_derivations_match_host_pack(dbs):
-    """device_args_raw / device_rows_raw (the TPU upload paths, which
-    sort and reverse rows on device) must reproduce pack_set's host
-    layouts exactly."""
+    """device_rows_raw (the GPU upload path, which sorts, reverses and
+    transposes rows on device) must reproduce pack_set's host layouts
+    exactly, with padding rows bucketless (grp -1, length 0)."""
+    from compairr_tpu.ops.derive import device_rows_raw
     from compairr_tpu.ops.engine import pack_keys, pack_set
-    from compairr_tpu.ops.pallas_kernels import (
-        device_args_raw,
-        device_rows_raw,
-    )
 
     d1, _ = dbs
     lmax = int(d1.longest)
@@ -233,576 +135,46 @@ def test_device_derivations_match_host_pack(dbs):
     np.testing.assert_array_equal(key, p.key)
     np.testing.assert_array_equal(order, p.orig[: d1.n])
 
-    pa, pb = device_rows_raw(d1, order, npad, lmax)
-    seqs = np.asarray(pa["seqs"])
-    rseqs = np.asarray(pa["rseqs"])
-    lens = np.asarray(pa["len"]).ravel()
-    v = np.asarray(pa["v"]).ravel()
-    j = np.asarray(pa["j"]).ravel()
-    orig = np.asarray(pa["orig"]).ravel()
-    np.testing.assert_array_equal(np.asarray(pb["seqs"]), seqs)
-    np.testing.assert_array_equal(np.asarray(pb["rseqs"]), rseqs)
+    rows = device_rows_raw(d1, order, key, npad, lmax, indels=True)
     n = d1.n
-    np.testing.assert_array_equal(seqs[:n], p.seqs[:n])
-    np.testing.assert_array_equal(rseqs[:n], p.rseqs[:n])
+    seqs_t, rseqs_t = _host_layout(p, n, lmax)
+    seqs = np.asarray(rows["seqs"])
+    np.testing.assert_array_equal(seqs[:, :n], seqs_t)
+    np.testing.assert_array_equal(np.asarray(rows["rseqs"])[:, :n], rseqs_t)
+    lens = np.asarray(rows["len"])
+    grp = np.asarray(rows["grp"])
     np.testing.assert_array_equal(lens[:n], p.lengths[:n])
-    np.testing.assert_array_equal(v[:n], p.v[:n])
-    np.testing.assert_array_equal(j[:n], p.j[:n])
-    np.testing.assert_array_equal(orig[:n], p.orig[:n])
-    # pad rows must never match: pad residues and non-positive lengths
-    assert (lens[n:] <= 0).all()
-    assert (seqs[n:] == d1.pad_value).all()
-
-    dev = device_args_raw(d1, order, npad, lmax)
-    np.testing.assert_array_equal(np.asarray(dev["a"]["seqs"])[:n], p.seqs[:n])
-    np.testing.assert_array_equal(np.asarray(dev["a"]["rseqs"])[:n], p.rseqs[:n])
-    np.testing.assert_array_equal(
-        np.asarray(dev["a"]["len"]).ravel()[:n], p.lengths[:n]
-    )
-    np.testing.assert_array_equal(
-        np.asarray(dev["b"]["seqs"])[:n], p.seqs[:n]
-    )
-    np.testing.assert_array_equal(
-        np.asarray(dev["b"]["rseqs"])[:n], p.rseqs[:n]
-    )
-    np.testing.assert_array_equal(
-        np.asarray(dev["b"]["cnt"]).ravel()[:n],
-        p.counts[:n].astype(np.float32),
-    )
-
-
-def test_mxu_codes_match_elementwise(dbs):
-    """The MXU one-hot-matmul distance formulation used on TPU must
-    produce identical codes/counts to the elementwise VPU one."""
-    import jax.numpy as jnp
-
-    from compairr_tpu.ops.engine import (
-        MatchSpec,
-        _count_fn,
-        _extract_fn,
-        pack_set,
-        pad_worklist_n,
-        build_worklist,
-    )
-    import jax
-
-    d1, d2 = dbs
-    for d, indels in [(0, False), (1, True), (2, False)]:
-        spec = MatchSpec(differences=d, indels=indels, ignore_genes=False)
-        lmax = int(max(d1.longest, d2.longest))
-        a = pack_set(d1, lmax, 128, True)
-        b = pack_set(d2, lmax, 128, True)
-        work = pad_worklist_n(
-            build_worklist(a, b, spec, 128, 128), a.np_, b.np_, 128, 128
-        )
-        dev = jax.device_put
-        a_args = (dev(a.seqs), dev(a.rseqs), dev(a.lengths), dev(a.v),
-                  dev(a.j), dev(a.orig))
-        b_args = (dev(b.seqs), dev(b.rseqs), dev(b.lengths), dev(b.v),
-                  dev(b.j), dev(b.orig))
-        w = jnp.asarray(work)
-        c0 = np.asarray(_count_fn(spec, 128, 128, False)(*a_args, *b_args, w))
-        c1 = np.asarray(_count_fn(spec, 128, 128, True)(*a_args, *b_args, w))
-        np.testing.assert_array_equal(c0, c1)
-        slab = jnp.asarray(work[:256]) if len(work) >= 256 else jnp.asarray(
-            np.concatenate([work, np.repeat(work[-1:], 256 - len(work), axis=0)])
-        )
-        i0, v0, n0 = _extract_fn(spec, 128, 128, 256, 1 << 17, False)(
-            *a_args, *b_args, slab
-        )
-        i1, v1, n1 = _extract_fn(spec, 128, 128, 256, 1 << 17, True)(
-            *a_args, *b_args, slab
-        )
-        assert int(n0) == int(n1)
-        np.testing.assert_array_equal(
-            np.asarray(i0)[: int(n0)], np.asarray(i1)[: int(n1)]
-        )
-        np.testing.assert_array_equal(
-            np.asarray(v0)[: int(n0)], np.asarray(v1)[: int(n1)]
-        )
-
-
-@pytest.mark.parametrize(
-    "d,indels,xself", [(0, False, False), (1, True, False), (2, False, True)]
-)
-def test_pallas_count_kernel_matches_xla(dbs, d, indels, xself):
-    """The Pallas per-tile count kernel (interpret mode on CPU) must
-    agree with the XLA scan counts tile by tile."""
-    import jax
-    import jax.numpy as jnp
-
-    from compairr_tpu.ops.engine import (
-        MatchSpec,
-        _count_fn,
-        _round_up,
-        pack_keys,
-        pad_worklist_n,
-        worklist_from_keys,
-    )
-    from compairr_tpu.ops.pallas_kernels import (
-        count_tiles_pallas,
-        device_rows_raw,
-    )
-
-    d1, d2 = dbs
-    spec = MatchSpec(
-        differences=d, indels=indels, ignore_genes=False,
-        exclude_self=xself,
-    )
-    lmax = _round_up(int(max(d1.longest, d2.longest)), 8)
-    from compairr_tpu.ops.engine import pack_set
-
-    oa, ka, na = pack_keys(d1, 128, True)
-    ob, kb, nb = pack_keys(d2, 128, True)
-    # sort_key uploads the fused bucket-key row, so these parity
-    # tests cross-check the key-fused kernels against the legacy
-    # mask-chain XLA oracle
-    pa, _ = device_rows_raw(d1, oa, na, lmax, sort_key=ka, pad_salt=0)
-    _, pb = device_rows_raw(d2, ob, nb, lmax, sort_key=kb, pad_salt=2)
-    psa = pack_set(d1, lmax, 128, True)
-    psb = pack_set(d2, lmax, 128, True)
-    dev = jax.device_put
-    ra = (dev(psa.seqs), dev(psa.rseqs), dev(psa.lengths), dev(psa.v),
-          dev(psa.j), dev(psa.orig))
-    rb = (dev(psb.seqs), dev(psb.rseqs), dev(psb.lengths), dev(psb.v),
-          dev(psb.j), dev(psb.orig))
-    delta = 1 if (indels and d == 1) else 0
-    work = pad_worklist_n(
-        worklist_from_keys(ka, d1.n, kb, d2.n, delta, 128, 128),
-        na, nb, 128, 128,
-    )
-    c_xla = np.asarray(
-        _count_fn(spec, 128, 128)(*ra, *rb, jnp.asarray(work))
-    )
-    c_pal = np.asarray(
-        count_tiles_pallas(
-            pa, pb, work,
-            differences=d, indels=indels and d == 1,
-            ignore_genes=False, exclude_self=xself,
-            tile_m=128, tile_n=128, interpret=True,
-        )
-    ).ravel()
-    np.testing.assert_array_equal(c_xla, c_pal)
-    if d >= 1:
-        assert c_xla.sum() > 0
-
-
-@pytest.mark.parametrize(
-    "d,indels,xself", [(1, False, False), (1, True, True)]
-)
-def test_pallas_extract_kernel_matches_xla(dbs, d, indels, xself):
-    """The Pallas packed-word extraction kernel (interpret mode on
-    CPU) must agree with the XLA scan extraction record for record."""
-    import jax.numpy as jnp
-
-    from compairr_tpu.ops.engine import (
-        MatchSpec,
-        _extract_fn,
-        _round_up,
-        pack_keys,
-        pad_worklist_n,
-        worklist_from_keys,
-    )
-    from compairr_tpu.ops.pallas_kernels import (
-        device_rows_raw,
-        extract_tiles_pallas,
-    )
-
-    d1, d2 = dbs
-    spec = MatchSpec(
-        differences=d, indels=indels, ignore_genes=False,
-        exclude_self=xself,
-    )
-    lmax = _round_up(int(max(d1.longest, d2.longest)), 8)
-    from compairr_tpu.ops.engine import pack_set
-
-    oa, ka, na = pack_keys(d1, 128, True)
-    ob, kb, nb = pack_keys(d2, 128, True)
-    # sort_key uploads the fused bucket-key row, so these parity
-    # tests cross-check the key-fused kernels against the legacy
-    # mask-chain XLA oracle
-    pa, _ = device_rows_raw(d1, oa, na, lmax, sort_key=ka, pad_salt=0)
-    _, pb = device_rows_raw(d2, ob, nb, lmax, sort_key=kb, pad_salt=2)
-    psa = pack_set(d1, lmax, 128, True)
-    psb = pack_set(d2, lmax, 128, True)
-    import jax as _jax
-    dev = _jax.device_put
-    ra = (dev(psa.seqs), dev(psa.rseqs), dev(psa.lengths), dev(psa.v),
-          dev(psa.j), dev(psa.orig))
-    rb = (dev(psb.seqs), dev(psb.rseqs), dev(psb.lengths), dev(psb.v),
-          dev(psb.j), dev(psb.orig))
-    delta = 1 if (indels and d == 1) else 0
-    work = pad_worklist_n(
-        worklist_from_keys(ka, d1.n, kb, d2.n, delta, 128, 128),
-        na, nb, 128, 128,
-    )[:256]
-    if len(work) < 256:
-        work = np.concatenate(
-            [work, np.repeat(work[-1:], 256 - len(work), axis=0)]
-        )
-    k = 1 << 15
-    i0, v0, n0 = _extract_fn(spec, 128, 128, 256, k)(
-        *ra, *rb, jnp.asarray(work)
-    )
-    i1, v1, n1 = extract_tiles_pallas(
-        pa, pb, work,
-        differences=d, indels=indels and d == 1, ignore_genes=False,
-        exclude_self=xself, tile_m=128, tile_n=128, k=k,
-        interpret=True,
-    )
-    assert int(n0) == int(n1) and int(n0) > 0
-    np.testing.assert_array_equal(
-        np.asarray(i0)[: int(n0)], np.asarray(i1)[: int(n1)]
-    )
-    np.testing.assert_array_equal(
-        np.asarray(v0)[: int(n0)].astype(np.uint32),
-        np.asarray(v1)[: int(n1)].astype(np.uint32),
-    )
-
-
-@pytest.mark.parametrize("d,indels", [(1, True), (2, False)])
-def test_pallas_count_cached_b_reuse(dbs, d, indels):
-    """The cached-b-side count kernel must be order-invariant: a
-    column-major worklist (long same-column runs exercising the VMEM
-    cache REUSE path) and the raw row-major one (rebuilding nearly
-    every program) must both match the XLA oracle."""
-    import jax
-    import jax.numpy as jnp
-
-    from compairr_tpu.ops.engine import (
-        MatchSpec,
-        _count_fn,
-        _round_up,
-        order_colmajor,
-        pack_keys,
-        pack_set,
-        pad_worklist_n,
-        worklist_from_keys,
-    )
-    from compairr_tpu.ops.pallas_kernels import (
-        count_tiles_pallas,
-        device_rows_raw,
-    )
-
-    d1, d2 = dbs
-    spec = MatchSpec(differences=d, indels=indels, ignore_genes=False)
-    lmax = _round_up(int(max(d1.longest, d2.longest)), 8)
-    oa, ka, na = pack_keys(d1, 128, True)
-    ob, kb, nb = pack_keys(d2, 128, True)
-    pa, _ = device_rows_raw(d1, oa, na, lmax, sort_key=ka, pad_salt=0)
-    _, pb = device_rows_raw(d2, ob, nb, lmax, sort_key=kb, pad_salt=2)
-    psa = pack_set(d1, lmax, 128, True)
-    psb = pack_set(d2, lmax, 128, True)
-    dev = jax.device_put
-    ra = (dev(psa.seqs), dev(psa.rseqs), dev(psa.lengths), dev(psa.v),
-          dev(psa.j), dev(psa.orig))
-    rb = (dev(psb.seqs), dev(psb.rseqs), dev(psb.lengths), dev(psb.v),
-          dev(psb.j), dev(psb.orig))
-    delta = 1 if (indels and d == 1) else 0
-    raw = worklist_from_keys(ka, d1.n, kb, d2.n, delta, 128, 128)
-    for work in (order_colmajor(raw), raw):
-        wp = pad_worklist_n(work, na, nb, 128, 128)
-        c_xla = np.asarray(
-            _count_fn(spec, 128, 128)(*ra, *rb, jnp.asarray(wp))
-        )
-        c_pal = np.asarray(
-            count_tiles_pallas(
-                pa, pb, wp,
-                differences=d, indels=indels and d == 1,
-                ignore_genes=False, exclude_self=False,
-                tile_m=128, tile_n=128, interpret=True,
-            )
-        ).ravel()
-        np.testing.assert_array_equal(c_xla, c_pal)
-    assert c_xla.sum() > 0
+    nj = max(len(d1.genes.j_names), 1)
+    np.testing.assert_array_equal(grp[:n], p.v[:n] * nj + p.j[:n])
+    np.testing.assert_array_equal(np.asarray(rows["orig"])[:n], p.orig[:n])
+    # padding rows never match: no bucket, no length, pad residues
+    assert (grp[n:] == -1).all() and (lens[n:] == 0).all()
+    assert (np.asarray(rows["orig"])[n:] == -1).all()
+    assert (seqs[:, n:] == d1.pad_value).all()
+    no_indels = device_rows_raw(d1, order, key, npad, lmax, indels=False)
+    assert no_indels["rseqs"] is None
 
 
 def test_chunked_derive_matches_host_pack(dbs, monkeypatch):
     """The fori_loop chunked derive (used above _DERIVE_CHUNK rows to
-    bound HBM temporaries) must produce the same layouts as the
+    bound device temporaries) must produce the same layouts as the
     single-shot branch."""
-    import compairr_tpu.ops.pallas_kernels as P
+    import compairr_tpu.ops.derive as D
     from compairr_tpu.ops.engine import pack_keys, pack_set
 
     d1, _ = dbs
-    monkeypatch.setattr(P, "_DERIVE_CHUNK", 64)
-    # the derive fns are lru_cached on (pad_val, lmax); force a fresh
-    # trace so the patched chunk size takes effect
-    P._gather_sparse_fn.cache_clear()
-    P._gather_derive_fn.cache_clear()
+    monkeypatch.setattr(D, "_DERIVE_CHUNK", 64)
+    # the derive fn is lru_cached on (pad_val, lmax, indels); force a
+    # fresh trace so the patched chunk size takes effect
+    D._derive_fn.cache_clear()
     lmax = int(d1.longest)
     p = pack_set(d1, lmax, 128, by_vjl=True)
-    order, _key, npad = pack_keys(d1, 128, by_vjl=True)
-    pa, pb = P.device_rows_raw(d1, order, npad, lmax)
-    seqs = np.asarray(pa["seqs"])
-    rseqs = np.asarray(pa["rseqs"])
-    orig = np.asarray(pa["orig"]).ravel()
+    order, key, npad = pack_keys(d1, 128, by_vjl=True)
+    rows = D.device_rows_raw(d1, order, key, npad, lmax, indels=True)
     n = d1.n
-    np.testing.assert_array_equal(seqs[:n], p.seqs[:n])
-    np.testing.assert_array_equal(rseqs[:n], p.rseqs[:n])
-    np.testing.assert_array_equal(orig[:n], p.orig[:n])
-    dev = P.device_args_raw(d1, order, npad, lmax)
-    np.testing.assert_array_equal(
-        np.asarray(dev["b"]["rseqs"])[:n], p.rseqs[:n]
-    )
+    seqs_t, rseqs_t = _host_layout(p, n, lmax)
+    np.testing.assert_array_equal(np.asarray(rows["seqs"])[:, :n], seqs_t)
+    np.testing.assert_array_equal(np.asarray(rows["rseqs"])[:, :n], rseqs_t)
+    np.testing.assert_array_equal(np.asarray(rows["orig"])[:n], p.orig[:n])
     monkeypatch.undo()
-    P._gather_sparse_fn.cache_clear()
-    P._gather_derive_fn.cache_clear()
-
-
-@pytest.mark.parametrize("d,indels", [(0, False), (1, True), (2, False)])
-def test_dense_pallas_interpret_matches_xla(dbs, d, indels):
-    """dense_matrix with the Pallas engine (interpret mode on CPU)
-    must equal the XLA engine exactly."""
-    d1, d2 = dbs
-    spec = MatchSpec(differences=d, indels=indels, ignore_genes=False)
-    m_xla = dense_matrix(d1, d2, spec, SCORE_PRODUCT, False, engine="xla")
-    m_pal = dense_matrix(
-        d1, d2, spec, SCORE_PRODUCT, False, engine="pallas"
-    )
-    np.testing.assert_allclose(m_xla, m_pal, rtol=0, atol=0)
-
-
-@pytest.mark.parametrize(
-    "score,expect_chains",
-    [
-        (SCORE_MIN, 3),       # cmax=3 -> one ge-chain per threshold
-        (SCORE_JACCARD, 3),   # Jaccard accumulates min (overlap.cc:144-166)
-        (SCORE_MAX, 5),       # lo + cnt sum chains + 3 negated ge
-    ],
-)
-def test_dense_v2_threshold_chains(dbs, score, expect_chains, monkeypatch):
-    """min/max/Jaccard decompose into threshold chains
-    (min(ca,cb) = sum_t 1[ca>=t]*1[cb>=t], _v2_chains) and must match
-    the sparse f64 path exactly through the v2 kernel (interpret) —
-    VERDICT r4 item 6. The dbs fixture's max_count=3 keeps the chain
-    count at cmax=3."""
-    from compairr_tpu.ops import pallas_kernels as P
-
-    d1, d2 = dbs
-    spec = MatchSpec(differences=1, indels=False, ignore_genes=False)
-    calls = []
-    real = P._dense_v3_fn
-
-    def probe(*a, **k):
-        calls.append(a)
-        return real(*a, **k)
-
-    monkeypatch.setattr(P, "_dense_v3_fn", probe)
-    dm = dense_matrix(d1, d2, spec, score, False, engine="pallas")
-    assert calls, "v3 kernel was not selected for a threshold-chain run"
-    assert len(calls[0][1]) == expect_chains
-    assert P.LAST_DENSE_KERNEL == "v3"
-    sm = sparse_matrix(d1, d2, spec, score, False)
-    np.testing.assert_allclose(dm, sm, rtol=0, atol=0)
-
-
-def test_dense_v2_threshold_chain_gates():
-    """The threshold decomposition only exists for small integer cmax
-    (chain count = cmax); large or fractional counts fall back."""
-    from compairr_tpu.constants import SCORE_JACCARD as J
-    from compairr_tpu.constants import SCORE_MAX as MX
-    from compairr_tpu.constants import SCORE_MIN as MN
-    from compairr_tpu.ops.pallas_kernels import _V2_GE_CMAX, _v2_chains
-
-    assert _v2_chains(MN, False, 4.0) == (
-        ("ge1", "ge1", 1.0), ("ge2", "ge2", 1.0),
-        ("ge3", "ge3", 1.0), ("ge4", "ge4", 1.0),
-    )
-    assert _v2_chains(J, False, 2.0) == (
-        ("ge1", "ge1", 1.0), ("ge2", "ge2", 1.0),
-    )
-    mx = _v2_chains(MX, False, 2.0)
-    assert mx == (
-        ("lo", "one", 1.0), ("one", "cnt", 1.0),
-        ("ge1", "ge1", -1.0), ("ge2", "ge2", -1.0),
-    )
-    assert _v2_chains(MN, False, float(_V2_GE_CMAX + 1)) is None
-    assert _v2_chains(MN, False, 2.5) is None
-    # -f collapses every mode to the single unit chain
-    assert _v2_chains(MN, True, 1e9) == (("one", "one", 1.0),)
-
-
-@pytest.mark.parametrize(
-    "indels,score,oh_cap",
-    [
-        (True, SCORE_PRODUCT, None),   # indel run: no HBM one-hots exist
-        (False, SCORE_PRODUCT, "1"),   # budget overflow: oh rejected
-        (True, SCORE_MIN, None),       # indel + threshold chains
-    ],
-)
-def test_dense_v2c_kernel(dbs, indels, score, oh_cap, monkeypatch):
-    """The cached-operand v2c kernel (VMEM b-side one-hot cache, the
-    sparse kernels' _cached_key_match treatment) must serve the runs
-    v2 cannot — indel runs and one-hot-budget overflows — instead of
-    the v1 per-tile-rebuild kernel (VERDICT r4 item 2), and match the
-    sparse f64 path exactly."""
-    from compairr_tpu.ops import pallas_kernels as P
-
-    if oh_cap is not None:
-        monkeypatch.setenv("COMPAIRR_OH_BYTES_MAX", oh_cap)
-    d1, d2 = dbs
-    spec = MatchSpec(differences=1, indels=indels, ignore_genes=False)
-    calls = []
-    real = P._dense_v2c_fn
-
-    def probe(*a, **k):
-        calls.append(a)
-        return real(*a, **k)
-
-    monkeypatch.setattr(P, "_dense_v2c_fn", probe)
-    dm = dense_matrix(d1, d2, spec, score, False, engine="pallas")
-    assert calls, "v2c kernel was not selected"
-    assert P.LAST_DENSE_KERNEL == "v2c"
-    sm = sparse_matrix(d1, d2, spec, score, False)
-    np.testing.assert_allclose(dm, sm, rtol=0, atol=0)
-
-
-def test_dense_v2c_keck_two_file_shape(monkeypatch):
-    """Kernel-class pin for the Keck-scale TWO-FILE dense shape: each
-    side's one-hots alone fit a 16 GB device, both together do not —
-    the run must take v2c (a-side HBM one-hots streamed, b-side
-    cached in VMEM), not fall to v1 (VERDICT r4 weak item 1)."""
-    from compairr_tpu.ops import pallas_kernels as P
-
-    monkeypatch.delenv("COMPAIRR_OH_ROWS_MAX", raising=False)
-    monkeypatch.setenv("COMPAIRR_OH_BYTES_MAX", "12500000000")
-    npad = 24_258_048
-    lpad = 24
-    fake_key = object()
-    mk = lambda oh: dict(
-        seqs=np.zeros((1, lpad), np.int8), oh=oh, key32=fake_key,
-        rseqs=None, cmax=3.0,
-    )
-    a_fits = P._oh_fits(npad, lpad)          # full budget: yes
-    shared = P._oh_fits(npad, lpad, 0.5)     # split budget: no
-    assert a_fits and not shared
-    # the two-file driver (engine.dense_matrix) passes scale 0.5 to
-    # each side, so b gets no "oh" — the kind ladder must pick v2c
-    kind = P._dense_kernel_kind(
-        mk(fake_key), mk(None), indels=False, score_int=SCORE_PRODUCT,
-        ignore_counts=False, r1p=128, tile_n=768,
-    )
-    assert kind == "v2c"
-    # and with both sides' one-hots present (self-compare), v2 stays
-    kind = P._dense_kernel_kind(
-        mk(fake_key), mk(fake_key), indels=False,
-        score_int=SCORE_PRODUCT, ignore_counts=False,
-        r1p=128, tile_n=768,
-    )
-    assert kind == "v2"
-
-
-def test_dense_v2c_a_hbm_streamed(dbs, monkeypatch):
-    """Execute (not just route) the v2c a_hbm path: a-side HBM
-    one-hot rows streamed (now _ohp zero-padded to the 128-lane
-    tiling) against the VMEM-cached, width-matched b-side build —
-    must match the sparse f64 path exactly. Forces the asymmetric
-    budget split (a fits at 0.9, the 0.5/0.5 split fails, b gets
-    none) by faking the budget check the way a Keck-scale two-file
-    run resolves it."""
-    from compairr_tpu.ops import pallas_kernels as P
-
-    monkeypatch.setattr(
-        P, "_oh_fits", lambda npad, lpad, scale=1.0: scale >= 0.6
-    )
-    d1, d2 = dbs
-    spec = MatchSpec(differences=1, indels=False, ignore_genes=False)
-    calls = []
-    real = P._dense_v2c_fn
-
-    def probe(*a, **k):
-        calls.append(a)
-        return real(*a, **k)
-
-    monkeypatch.setattr(P, "_dense_v2c_fn", probe)
-    dm = dense_matrix(d1, d2, spec, SCORE_PRODUCT, False, engine="pallas")
-    assert calls and calls[0][-1] is True, "a_hbm v2c was not exercised"
-    assert P.LAST_DENSE_KERNEL == "v2c"
-    sm = sparse_matrix(d1, d2, spec, SCORE_PRODUCT, False)
-    np.testing.assert_allclose(dm, sm, rtol=0, atol=0)
-
-
-def test_dense_kernel_kind_v1_fallbacks():
-    """v1 remains only for runs with no fused key or no exact chain
-    decomposition at their cmax."""
-    from compairr_tpu.constants import SCORE_MIN as MN
-    from compairr_tpu.constants import SCORE_RATIO
-    from compairr_tpu.ops import pallas_kernels as P
-
-    lpad = 24
-    base = dict(
-        seqs=np.zeros((1, lpad), np.int8), oh=None, key32=object(),
-        rseqs=None, cmax=3.0,
-    )
-    nokey = dict(base, key32=None)
-    assert P._dense_kernel_kind(
-        nokey, nokey, indels=False, score_int=SCORE_PRODUCT,
-        ignore_counts=False, r1p=8, tile_n=256,
-    ) == "v1"
-    big = dict(base, cmax=1e6)
-    assert P._dense_kernel_kind(
-        big, big, indels=False, score_int=MN,
-        ignore_counts=False, r1p=8, tile_n=256,
-    ) == "v1"
-    assert P._dense_kernel_kind(
-        base, base, indels=False, score_int=SCORE_RATIO,
-        ignore_counts=False, r1p=8, tile_n=256,
-    ) == "v1"
-
-
-def test_dense_v2_single_bucket_data(tmp_path):
-    """Single-V/J fixed-length data (every tile one (v,j,len) bucket —
-    the Keck-typical shape) through the v2 kernel must match the
-    sparse f64 path exactly."""
-    from compairr_tpu.ops import pallas_kernels as P
-
-    a_path = make_tsv(
-        str(tmp_path / "a.tsv"), 300, 4, seed=41, n_v=1, n_j=1,
-        len_range=(10, 10), alphabet_sub=4, max_count=3,
-    )
-    b_path = make_tsv(
-        str(tmp_path / "b.tsv"), 260, 5, seed=42, n_v=1, n_j=1,
-        len_range=(10, 10), alphabet_sub=4, max_count=3,
-    )
-    genes = GeneTables()
-    opt = Options()
-    log = NullLogger()
-    d1 = read_db(a_path, opt, genes, log, False, "1")
-    d2 = read_db(b_path, opt, genes, log, False, "2")
-    spec = MatchSpec(differences=2, indels=False, ignore_genes=False)
-    dm = dense_matrix(d1, d2, spec, SCORE_PRODUCT, False, engine="pallas")
-    assert P.LAST_DENSE_KERNEL == "v3"
-    sm = sparse_matrix(d1, d2, spec, SCORE_PRODUCT, False)
-    np.testing.assert_allclose(dm, sm, rtol=0, atol=0)
-
-
-def test_dense_v3_scratch_gate_falls_back_to_v2():
-    """When the chain Q accumulators fit the VMEM budget but the v3
-    DMA ring buffers push past it, the kind ladder must keep the v2
-    kernel (auto-pipelined) rather than reject the run."""
-    from compairr_tpu.constants import SCORE_MIN as MN
-    from compairr_tpu.ops import pallas_kernels as P
-
-    lpad = 24
-    fake = object()
-    mk = lambda r1p_unused: dict(
-        seqs=np.zeros((1, lpad), np.int8), oh=fake, key32=fake,
-        scal4=fake, rseqs=None, cmax=12.0,
-    )
-    # 12 ge-chains at r1p=128, tile 768: Q = 12*128*768*4 = 4.5 MiB
-    # fits the 6 MiB budget alone (v2) but not plus the ~2.4 MiB ring
-    chains = P._v2_chains(MN, False, 12.0)
-    assert P._v2_scratch_ok(chains, 128, 768)
-    assert not P._v3_scratch_ok(chains, 128, 768, 768, lpad)
-    kind = P._dense_kernel_kind(
-        mk(128), mk(128), indels=False, score_int=MN,
-        ignore_counts=False, r1p=128, tile_n=768, tile_m=768,
-    )
-    assert kind == "v2"
-    # small r1p: the ring fits and v3 takes over
-    kind = P._dense_kernel_kind(
-        mk(8), mk(8), indels=False, score_int=MN,
-        ignore_counts=False, r1p=8, tile_n=768, tile_m=768,
-    )
-    assert kind == "v3"
+    D._derive_fn.cache_clear()

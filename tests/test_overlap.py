@@ -1,7 +1,7 @@
 import subprocess
 import sys
 
-from conftest import REF_TEST_DIR
+from conftest import REF_TEST_DIR, REPO
 
 
 def run_cli(args):
@@ -9,7 +9,7 @@ def run_cli(args):
         [sys.executable, "-m", "compairr_tpu", *args],
         capture_output=True,
         text=True,
-        cwd="/root/repo",
+        cwd=REPO,
     )
 
 
